@@ -4,7 +4,7 @@ Mirrors ``av1/decoder/decodeframe.c`` (decode_partition :1244,
 parse_decode_block :1115, decode_token_recon_block) and ``decodemv.c``
 (read_intra_frame_mode_info) for KEY / INTRA_ONLY frames, 8-bit 4:2:0.
 
-This host-side reference decoder is the conformance anchor; batched TPU
+This host-side reference decoder is the conformance anchor; batched device
 paths (wavefront recon) plug in behind the same normative logic.
 """
 from __future__ import annotations

@@ -14,6 +14,8 @@ Reference analogues: av1/encoder/bitstream.c write_modes_b + av1_write_mv
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from ..bitstream.headers import (FrameHeader, TileInfo, write_frame_header)
@@ -32,7 +34,7 @@ from ..normative.txsize import TXSIZE_LOG2_MINUS4, TXSIZE_SQR, \
 from ..decoder import inter as IT
 from ..utils.frame import Frame
 from . import tpu_inter
-from .tpu_frame import _pad_plane, _warm_transfer
+from .tpu_frame import _pad_plane
 from .frame import EncoderConfig
 
 MV_CLASSES = 11
@@ -76,8 +78,7 @@ class TpuInterFrameEncoder:
                  prev_fc=None, ref_slot: int = 0, refresh_flags: int = 0xFF,
                  show: bool = True, primary_ref: int = 0):
         if not available():
-            raise RuntimeError("TPU path requires the native EC library")
-        _warm_transfer()
+            raise RuntimeError("the fused path requires the native EC library")
         # CDF forwarding: when the previous frame's end-of-frame entropy
         # state is supplied, code this frame against it (primary_ref_frame=0
         # + frame-end update) instead of resetting to defaults — backward
@@ -204,7 +205,6 @@ class TpuInterFrameEncoder:
 
     # ------------------------------------------------------------------
     def encode(self) -> bytes:
-        import time
         seq, fh = self.make_headers()
         self.seq, self.fh = seq, fh
         if self.prev_fc is not None:
@@ -685,7 +685,7 @@ def encode_video_tpu(frames, cfg: EncoderConfig, path: str | None = None,
                      key_interval: int = 0, forward_cdf: bool = True,
                      kf_q_offset: int = 60, tf_key: bool = True,
                      cdef: bool = True):
-    """Fused-path GOP driver: TPU KEY frame + TPU inter frames on a LAST
+    """Fused-path GOP driver: device KEY frame + device inter frames on a LAST
     recon chain (IPPP). With ``forward_cdf`` (default), every inter frame
     inherits the previous frame's end-of-frame entropy state via
     primary_ref_frame instead of resetting to defaults (backward
@@ -712,6 +712,7 @@ def encode_video_tpu(frames, cfg: EncoderConfig, path: str | None = None,
         cfg, base_q_idx=max(8, cfg.base_q_idx - kf_q_offset)) \
         if kf_q_offset else cfg
     for i, frame in enumerate(frames):
+        t0 = time.perf_counter()
         is_key = i == 0 or (key_interval > 0 and i % key_interval == 0)
         if is_key:
             if tf_key and len(frames) > 1:
@@ -728,6 +729,7 @@ def encode_video_tpu(frames, cfg: EncoderConfig, path: str | None = None,
                                        frames[0].width, frames[0].height,
                                        prev_fc=prev_fc)
             packets.append(enc.encode())
+        enc.frame_s = time.perf_counter() - t0   # host wall time, this frame
         encs.append(enc)
         # post-LPF references: inter encoders expose ref_planes_out
         # (ref_planes_dev is their INPUT refs); KEY encoders expose
@@ -744,7 +746,7 @@ def encode_video_tpu_arf(frames, cfg: EncoderConfig, path: str | None = None,
                          group: int = 4, kf_q_offset: int = 60,
                          arf_q_offset: int = 48, tf_strength: int = 2,
                          forward_cdf: bool = True):
-    """ARF star-group GOP on the fused TPU path (depth-1 pyramid,
+    """ARF star-group GOP on the fused device path (depth-1 pyramid,
     av1/encoder/gop_structure.c + encode_strategy.c:718 analogue).
 
     Per group of ``group`` display frames: the LAST frame of the group is
@@ -959,7 +961,7 @@ def encode_video_tpu_rc(frames, target_bps: float, fps: float = 30.0,
                         key_interval: int = 0, start_q: int = 120,
                         min_q: int = 8, max_q: int = 250,
                         max_step: int = 32, path: str | None = None):
-    """One-pass target-bitrate GOP encode on the fused TPU path.
+    """One-pass target-bitrate GOP encode on the fused device path.
 
     A local power-law rate model ``bits ~ c * qstep**-beta`` (the family
     behind av1_rc_bits_per_mb, av1/encoder/ratectrl.c:1741) is fitted

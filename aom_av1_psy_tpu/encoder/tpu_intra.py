@@ -1,14 +1,12 @@
-"""TPU-resident conforming all-intra frame encoder (the fused path).
+"""Device-resident conforming all-intra frame encoder (the fused path).
 
-This is the round-2 fusion of the jitted analysis pipeline and the
-conforming encoder demanded by VERDICT r1 #1: ONE path where the mode
-search runs batched on the TPU over wavefronts of the block grid using
-**real reconstruction edges**, the transform/quantize/recon loop is the
-bit-exact normative integer path (``ops/txfm``), and the host only packs
-the already-made decisions into the bitstream (per-txb coefficient coding
-via the native C++ coder).
+ONE path where the mode search runs batched on the device over
+wavefronts of the block grid using **real reconstruction edges**, the
+transform/quantize/recon loop is the bit-exact normative integer path
+(``ops/txfm``), and the host only packs the already-made decisions into
+the bitstream (per-txb coefficient coding via the native C++ coder).
 
-Design (TPU-first, not a translation of the reference):
+Design (not a translation of the reference):
   - the reference encodes SB-by-SB with per-block scalar RD
     (av1/encoder/encodeframe.c:2211 encode_sb_row); here the frame is a
     uniform grid of ``bs``-sized blocks and a ``lax.scan`` walks the
@@ -44,6 +42,7 @@ from ..normative import txsize as TS
 from ..normative.blocks import INTRA_MODE_CONTEXT
 from ..normative.enums import BlockSize, TxSize
 from ..ops import intra as intra_ops
+from ..ops.cdef_jax import floor_log2
 from ..ops import txfm as txfm_ops
 
 # plan mode set: no top-right/bottom-left extensions, no edge filtering
@@ -253,11 +252,20 @@ def _tq_recon_uv(src, pred, dc_q, ac_q, tx_size, scan, uv_mode):
 # ----------------------------------------------------------------------
 # wavefront scan
 # ----------------------------------------------------------------------
-def _gather_edges(buf, by, bx, bs):
-    """buf has a 1-px guard border; (by,bx) are block origins + 1."""
+def _gather_edges(buf, by, bx, bs, last_row=None, last_col=None):
+    """buf has a 1-px guard border; (by,bx) are block origins + 1.
+
+    ``last_row``/``last_col`` (buf coordinates) bound the edge reads to the
+    mi area: a block that overhangs the frame's bottom or right edge reads
+    its last in-frame left/above pixel for the rest of the edge, as the
+    decoder does (n_left/n_top in av1_predict_intra_block)."""
     cols = bx[:, None] + jnp.arange(bs)[None, :]
-    above = buf[by[:, None] - 1, cols]
     rows = by[:, None] + jnp.arange(bs)[None, :]
+    if last_col is not None:
+        cols = jnp.minimum(cols, last_col)
+    if last_row is not None:
+        rows = jnp.minimum(rows, last_row)
+    above = buf[by[:, None] - 1, cols]
     left = buf[rows, bx[:, None] - 1]
     tl = buf[by - 1, bx - 1]
     return above, left, tl
@@ -469,7 +477,7 @@ def _shrink_levels(lv):
 
 
 def plan_frame(src_planes, q, bs, fc, rdmult, fetch_recon=False):
-    """Run the TPU wavefronts over one frame; returns a host-side plan
+    """Run the device wavefronts over one frame; returns a host-side plan
     dict consumed by TpuFrameEncoder's pack walk. src_planes are the
     mi-aligned int32 source planes (luma dims must be multiples of bs).
     ``rdmult`` is a scalar or a per-block (R, C) grid (per-SB SSIM/psy
@@ -535,14 +543,11 @@ def _coeff_rate_est(levels, eob, lvl_tbl, eob_tbl):
     nnz = nz.sum(-1)
     # zeros before the scan eob each cost the base-0 symbol
     rate = rate + (eob - nnz).astype(jnp.float32) * lvl_tbl[0]
-    big = jnp.maximum(al.astype(jnp.float32) - 14.0, 1.0)
+    golomb = 2 * floor_log2(al - 14) + 1
     rate = rate + jnp.where(
-        al >= 15, (2.0 * jnp.floor(jnp.log2(big)) + 1.0) * 512.0,
-        0.0).sum(-1)
+        al >= 15, golomb.astype(jnp.float32) * 512.0, 0.0).sum(-1)
     # eob_pt = 1, 2, then 2 + floor(log2(eob - 1)) (eob_group_start)
-    ptf = 2.0 + jnp.floor(jnp.log2(jnp.maximum(eob - 1, 1)
-                                   .astype(jnp.float32)))
-    pt = jnp.where(eob <= 2, eob, ptf.astype(jnp.int32))
+    pt = jnp.where(eob <= 2, eob, 2 + floor_log2(eob - 1))
     pt = jnp.clip(pt, 1, eob_tbl.shape[0])
     rate = rate + eob_tbl[pt - 1]
     return jnp.where(eob > 0, rate, 0.0)
@@ -570,7 +575,7 @@ def _skip_rd(levels, eob, recon, pred, src, rdm, lvl_tbl, eob_tbl):
 @functools.partial(jax.jit, static_argnames=("R", "C"))
 def _luma_wavefront_part(src, mode_cost, angle_cost, dc_q, ac_q,
                          rd16, rd32, forced, no_split, pr_none, pr_split,
-                         rt32, rt16, masks, *, R, C):
+                         rt32, rt16, masks, last_row, last_col, *, R, C):
     """Two-level luma wavefront over 32px cells with the FULL candidate
     set: 7 extension-free modes + all directional (mode, delta) pairs
     (tpu_intra_dir). Candidate availability follows the normative
@@ -579,8 +584,10 @@ def _luma_wavefront_part(src, mode_cost, angle_cost, dc_q, ac_q,
 
     src: (R*32, C*32) int32; rd16 (2R,2C) / rd32 (R,C) lambda grids;
     forced (R,C) bool — cells where the decoder implies SPLIT (frame
-    edge, has_rows/has_cols false). Returns (split (R,C), m32 (AV1 mode),
-    d32 (angle delta), lv32, eob32, m16, d16, lv16, eob16, recon)."""
+    edge, has_rows/has_cols false); last_row/last_col: the mi area's last
+    pixel row/column (edge reads clamp there, _gather_edges). Returns
+    (split (R,C), m32 (AV1 mode), d32 (angle delta), lv32, eob32, m16,
+    d16, lv16, eob16, recon)."""
     from . import tpu_intra_dir as DIR
     tx32, tx16 = BS_TO_TX[32], BS_TO_TX[16]
     scan32 = jnp.asarray(tables.scan_table(tx32, 0))
@@ -626,7 +633,8 @@ def _luma_wavefront_part(src, mode_cost, angle_cost, dc_q, ac_q,
         bx = cc * 32 + 1
         have_a = rc > 0
         have_l = cc > 0
-        above, left, tl = _gather_edges(buf, by, bx, 32)
+        above, left, tl = _gather_edges(buf, by, bx, 32, last_row + 1,
+                                        last_col + 1)
         rows = by[:, None] + jnp.arange(32)[None, :]
         cols = bx[:, None] + jnp.arange(32)[None, :]
         src32 = src[rows[:, :, None] - 1, cols[:, None, :] - 1]  # (B,32,32)
@@ -768,10 +776,11 @@ def _luma_wavefront_part(src, mode_cost, angle_cost, dc_q, ac_q,
 @functools.partial(jax.jit, static_argnames=("R", "C"))
 def _chroma_wavefront_part(src_u, src_v, uv_cost, dc_q, ac_q,
                            rd16, rd32, split32, y_m32, y_m16, rtc16, rtc8,
-                           *, R, C):
+                           last_row, last_col, *, R, C):
     """Two-level chroma wavefront over 16px chroma cells (4:2:0 mirror of
     the luma 32/16 partition). The structure FOLLOWS the luma split map;
     both alternatives are reconstructed and selected by ``split32``.
+    last_row/last_col: the chroma mi area's last pixel row/column.
 
     Returns (uvm16 (R,C), uvlv16 (2,R,C,256), uveob16 (2,R,C),
     uvm8 (2R,2C), uvlv8 (2,2R,2C,64), uveob8 (2,2R,2C), recon (2,H,W))."""
@@ -811,7 +820,8 @@ def _chroma_wavefront_part(src_u, src_v, uv_cost, dc_q, ac_q,
         sse16 = 0
         pb16 = []
         for p, srcp in ((0, src_u), (1, src_v)):
-            a, l, t = _gather_edges(bufs[p], by, bx, 16)
+            a, l, t = _gather_edges(bufs[p], by, bx, 16, last_row + 1,
+                                   last_col + 1)
             preds = _predict_all_modes(a, l, t, have_a, have_l, 16)
             sb = srcp[rows[:, :, None] - 1, cols[:, None, :] - 1]
             sse16 = sse16 + ((preds - sb[None]) ** 2).sum((-1, -2))
@@ -833,7 +843,8 @@ def _chroma_wavefront_part(src_u, src_v, uv_cost, dc_q, ac_q,
         # ---- 8 path (4 sub-blocks per plane, raster, local recon) ----
         locs = [jnp.zeros((B, 18, 18), jnp.int32) for _ in range(2)]
         for p in range(2):
-            a, l, t = _gather_edges(bufs[p], by, bx, 16)
+            a, l, t = _gather_edges(bufs[p], by, bx, 16, last_row + 1,
+                                   last_col + 1)
             loc = locs[p]
             loc = loc.at[:, 0, 1:17].set(a)
             loc = loc.at[:, 1:17, 0].set(l)
@@ -961,22 +972,9 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
     rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
         .astype(np.float32)
 
-    # decoder-implied splits at the frame edge (has_rows/has_cols false),
-    # and cells that must NOT split because a visited 16 sub-block would be
-    # partial (no square leaf available there); conflicting cells are
-    # rejected by the caller (plan_part_supported)
-    rr = 8 * np.arange(R)[:, None]
-    cc = 8 * np.arange(C)[None, :]
-    forced = ((rr + 4 >= mi_rows) | (cc + 4 >= mi_cols))
-    no_split = np.zeros((R, C), bool)
-    for qr in (0, 1):
-        for qc in (0, 1):
-            sr, sc = rr + 4 * qr, cc + 4 * qc
-            visited = (sr < mi_rows) & (sc < mi_cols)
-            partial = visited & ((sr + 2 >= mi_rows) | (sc + 2 >= mi_cols))
-            no_split |= partial
-    assert not (forced & no_split).any(), "unsupported mi dims for part2"
+    forced, no_split = partition_edge_grids(mi_rows, mi_cols, R, C)
     pr_none, pr_split = _part_rate_scalars(fc)
+    vis_w = vis_mi_w if vis_mi_w is not None else mi_cols
 
     rt = _rate_tables(fc)
     split, m32, d32, lv32, e32, m16, d16, lv16, e16, yrec = \
@@ -984,7 +982,8 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
             jnp.asarray(y), jnp.asarray(kf_cost), jnp.asarray(angle_cost),
             dc_q, ac_q, jnp.asarray(rd16), jnp.asarray(rd32),
             jnp.asarray(forced), jnp.asarray(no_split), pr_none, pr_split,
-            rt["y32"], rt["y16"], masks, R=R, C=C)
+            rt["y32"], rt["y16"], masks, mi_rows * 4 - 1, vis_w * 4 - 1,
+            R=R, C=C)
     plan = {
         "part": True,
         "split32": np.asarray(split).astype(np.uint8),
@@ -1002,7 +1001,8 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
                 jnp.asarray(u), jnp.asarray(v), jnp.asarray(uv_cost),
                 dc_q, ac_q, jnp.asarray(rd16),
                 jnp.asarray(rd32), split, m32, m16,
-                rt["uv16"], rt["uv8"], R=R, C=C)
+                rt["uv16"], rt["uv8"], mi_rows * 2 - 1, vis_w * 2 - 1,
+                R=R, C=C)
         plan["uv_mode16"] = np.asarray(uvm16)
         plan["uv_mode8"] = np.asarray(uvm8)
         plan["uv_levels16"] = np.asarray(_shrink_levels(uvlv16)) \
@@ -1015,6 +1015,25 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
     if fetch_recon:
         plan["recon"] = [np.asarray(r) for r in plan["recon_dev"]]
     return plan
+
+
+def partition_edge_grids(mi_rows: int, mi_cols: int, R: int, C: int):
+    """(forced, no_split) (R, C) bool grids of the two-level plan at the
+    frame edge: cells where the decoder implies SPLIT (has_rows/has_cols
+    false), and cells that must NOT split because a visited 16 sub-block
+    would be partial (no square leaf available there). Conflicting cells
+    are rejected by the caller (plan_part_supported)."""
+    rr = 8 * np.arange(R)[:, None]
+    cc = 8 * np.arange(C)[None, :]
+    forced = (rr + 4 >= mi_rows) | (cc + 4 >= mi_cols)
+    no_split = np.zeros((R, C), bool)
+    for qr in (0, 1):
+        for qc in (0, 1):
+            sr, sc = rr + 4 * qr, cc + 4 * qc
+            visited = (sr < mi_rows) & (sc < mi_cols)
+            no_split |= visited & ((sr + 2 >= mi_rows) | (sc + 2 >= mi_cols))
+    assert not (forced & no_split).any(), "unsupported mi dims for part2"
+    return forced, no_split
 
 
 def plan_part_supported(mi_rows: int, mi_cols: int) -> bool:

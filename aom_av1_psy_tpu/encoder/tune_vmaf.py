@@ -1,4 +1,4 @@
-"""VMAF-style perceptual tuning — TPU-native analogue of
+"""VMAF-style perceptual tuning — the JAX analogue of
 ``av1/encoder/tune_vmaf.c``.
 
 The reference's tune=vmaf pipeline is (a) unsharp-mask the SOURCE frame
@@ -83,12 +83,18 @@ def _moments(x, win: int = 9):
     window keeps the metric monotone in the same distortions and stays a
     single reduce_window-style conv)."""
     k = jnp.ones((win, win), jnp.float32) / (win * win)
-    def conv(a):
-        return jax.lax.conv_general_dilated(
-            a[None, None], k[None, None], (1, 1), "VALID")[0, 0]
-    mu = conv(x)
-    musq = conv(x * x)
+    mu = _box_conv(x, k)
+    musq = _box_conv(x * x, k)
     return mu, jnp.maximum(musq - mu * mu, 0.0)
+
+
+def _box_conv(a, k, padding="VALID"):
+    """2-D f32 conv at full f32 precision: the operands are squares and
+    products of pixels (16 significant bits), which a reduced-precision
+    tensor-core pass would round."""
+    return jax.lax.conv_general_dilated(
+        a[None, None], k[None, None], (1, 1), padding,
+        precision=jax.lax.Precision.HIGHEST)[0, 0]
 
 
 def _vif_scale(ref, dist):
@@ -98,8 +104,7 @@ def _vif_scale(ref, dist):
     mu_r, var_r = _moments(ref)
     mu_d, var_d = _moments(dist)
     k = jnp.ones((9, 9), jnp.float32) / 81.0
-    rd = jax.lax.conv_general_dilated(
-        (ref * dist)[None, None], k[None, None], (1, 1), "VALID")[0, 0]
+    rd = _box_conv(ref * dist, k)
     cov = rd - mu_r * mu_d
     g = cov / (var_r + 1e-10)
     sv = jnp.maximum(var_d - g * cov, 0.0)
@@ -111,8 +116,7 @@ def _vif_scale(ref, dist):
 def _down2(x):
     """Blur-and-decimate for the next VIF scale."""
     k = jnp.asarray([[1, 2, 1], [2, 4, 2], [1, 2, 1]], jnp.float32) / 16.0
-    b = jax.lax.conv_general_dilated(
-        x[None, None], k[None, None], (1, 1), "SAME")[0, 0]
+    b = _box_conv(x, k, "SAME")
     return b[::2, ::2]
 
 

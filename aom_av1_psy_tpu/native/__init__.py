@@ -1,7 +1,8 @@
 """Native (C++) runtime pieces with ctypes bindings.
 
-Builds lazily with g++ on first import; callers fall back to the pure
-Python implementations when no toolchain is available.
+Builds lazily with g++ on first use; callers fall back to the pure
+Python implementations when no toolchain is available, and
+``build_error()`` says why the library is missing.
 """
 from __future__ import annotations
 
@@ -10,34 +11,46 @@ import os
 import subprocess
 
 _HERE = os.path.dirname(__file__)
-_LIB_PATH = os.path.join(_HERE, "libaomtpu_ec.so")
+LIB_PATH = os.path.join(_HERE, "libaomtpu_ec.so")
 _lib = None
+_error = None
 
 
 def _build() -> bool:
+    global _error
     src = os.path.join(_HERE, "ec.cpp")
     try:
-        subprocess.check_call(
-            ["g++", "-O2", "-shared", "-fPIC", src, "-o", _LIB_PATH],
-            stderr=subprocess.DEVNULL)
-        return True
-    except (OSError, subprocess.CalledProcessError):
+        r = subprocess.run(
+            ["g++", "-O2", "-shared", "-fPIC", src, "-o", LIB_PATH],
+            capture_output=True, text=True)
+    except OSError as e:
+        _error = f"g++ not runnable: {e}"
         return False
+    if r.returncode != 0:
+        _error = f"g++ failed ({r.returncode}): {r.stderr.strip()[-2000:]}"
+        return False
+    return True
+
+
+def build_error() -> str | None:
+    """Why ``get_lib()`` returned None (build or load failure), else None."""
+    return _error
 
 
 def get_lib():
     """Load (building if needed) the native EC library, or None."""
-    global _lib
+    global _lib, _error
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) or (
-            os.path.getmtime(_LIB_PATH)
+    if not os.path.exists(LIB_PATH) or (
+            os.path.getmtime(LIB_PATH)
             < os.path.getmtime(os.path.join(_HERE, "ec.cpp"))):
         if not _build():
             return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        lib = ctypes.CDLL(LIB_PATH)
+    except OSError as e:
+        _error = f"cannot load {LIB_PATH}: {e}"
         return None
     lib.ec_enc_new.restype = ctypes.c_void_p
     lib.ec_dec_new.restype = ctypes.c_void_p

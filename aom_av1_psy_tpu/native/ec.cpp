@@ -434,7 +434,7 @@ int ec_enc_coeffs(Encoder *e, const int32_t *coeff, int width, int height,
 }
 
 // ---------------------------------------------------------------------------
-// Full-tile KEY-frame packer for the uniform-grid TPU plan (the fused path).
+// Full-tile KEY-frame packer for the uniform-grid device plan (the fused path).
 //
 // One native call packs the entire tile's syntax — partition tree, skip,
 // kf y/uv intra modes, angle deltas, ext-tx, and every coefficient block —
@@ -820,7 +820,7 @@ int ec_dec_coeffs(Decoder *d, int32_t *coeff, int width, int height, int bhl,
 
 // ---------------------------------------------------------------------------
 // Pack v2: KEY-frame tile with a two-level partition tree (64 -> 32 cells,
-// each PARTITION_NONE or SPLIT into four 16s) from the partitioned TPU plan
+// each PARTITION_NONE or SPLIT into four 16s) from the partitioned device plan
 // (encoder/tpu_intra.py plan_frame_part). Mirrors the same write order as
 // the v1 uniform pack; adds per-bsize mode/level arrays, rolling mode/skip
 // neighbour context (the decoder's above_mi/left_mi), and per-tx-size CDF

@@ -273,7 +273,7 @@ def search_strengths(planes, srcp, mi_skip, mi_rows, mi_cols, damping,
     (av1/encoder/pickcdef.c); here every non-skip 8x8 unit of the frame is
     one row of a single block stack, directions are computed once, and each
     (pri, sec) candidate is one vectorized ``filter_blocks`` call — the
-    TPU-era expression of the same brute force.  ``planes`` is the
+    vectorized expression of the same brute force.  ``planes`` is the
     post-deblock recon (mi-aligned int32), ``srcp`` the source planes.
     Returns applied strengths (y_pri, y_sec, uv_pri, uv_sec); the caller
     codes sec as min(sec, 3) per the spec's 4->3 mapping.

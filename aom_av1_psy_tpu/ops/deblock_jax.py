@@ -13,8 +13,8 @@ level (delta_lf off), sharpness 0 — every edge's parameters collapse:
   * all edges are INDEPENDENT: a 14-tap filter writes ±6 around its edge
     and reads ±7, and edges are >= 16 px apart (8 px with ±2 writes / ±3
     reads on chroma), so the spec's sequential walk and band interleaving
-    equal one parallel gather→filter→scatter per direction — ideal TPU
-    work, and the reason the filter can run inside the plan epilogue and
+    equal one parallel gather→filter→scatter per direction — data-parallel
+    device work, and the reason the filter can run inside the plan epilogue and
     on the inter reference chain (VERDICT r4 #2).
 
 Bit-exactness vs the host walker is asserted in tests/test_deblock_jax.py.

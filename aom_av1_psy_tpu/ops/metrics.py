@@ -1,6 +1,6 @@
 """Batched distortion/metric kernel zoo.
 
-TPU-native replacement for the ``aom_dsp`` SAD/variance/SSE/SATD RTCD
+Batched replacement for the ``aom_dsp`` SAD/variance/SSE/SATD RTCD
 families (aom_dsp_rtcd_defs.pl: ~103 sad/variance protos): instead of one
 function per block size per arch, a handful of batched reducers over
 ``(..., h, w)`` arrays that jit and fuse. Works under numpy or jax.numpy.

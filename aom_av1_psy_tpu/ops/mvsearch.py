@@ -1,10 +1,10 @@
-"""Motion search — TPU-native dense grid scan + subpel refinement.
+"""Motion search — batched dense grid scan + subpel refinement.
 
 The reference's motion search (av1/encoder/mcomp.c) walks sequential
 diamond/hex/NSTEP patterns with early exits — a latency-bound scalar
-program. On TPU we invert the structure: evaluate EVERY candidate in a
+program. Here the structure is inverted: evaluate EVERY candidate in a
 (2R+1)^2 full-pel window for a whole batch of blocks at once as one
-dense SAD tensor contraction (MXU/VPU-friendly, no data-dependent
+dense SAD tensor contraction (no data-dependent
 control flow), then argmin. Subpel refinement evaluates all 8 half/
 quarter-pel neighbours in one shot through the normative convolve
 kernels (ops/convolve.py) instead of iterative FIRST_LEVEL/SECOND_LEVEL
@@ -93,7 +93,7 @@ def full_pel_hierarchical(src_blocks, ref_windows, radius: int,
     """Two-level grid search for big windows: coarse grid at `step`,
     then a dense refine of +/-(step-1) around the coarse winner.
     Keeps the candidate tensor small while covering the full window
-    (the TPU equivalent of NSTEP's shrinking diamonds, mcomp.c:1672)."""
+    (the batched equivalent of NSTEP's shrinking diamonds, mcomp.c:1672)."""
     xp = _xp(src_blocks)
     B, h, w = src_blocks.shape
     # Coarse: subsample candidate offsets by `step`.

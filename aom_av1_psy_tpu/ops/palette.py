@@ -2,7 +2,7 @@
 av1_calc_indices_dim1/dim2 + av1_k_means iterations), batched.
 
 The nearest-centroid assignment is a (N, K) distance matrix argmin —
-exactly the TPU-friendly formulation; the Lloyd iteration on top is a
+exactly the batched-array formulation; the Lloyd iteration on top is a
 segment mean.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@
   upscale_normative_rect; kernel av1_convolve_horiz_rs convolve.c:26),
   restructured as a vectorized gather + 8-tap weighted sum over all
   output columns at once (per tile column) instead of the per-pixel
-  scalar loop — a TPU-shaped formulation with static shapes.
+  scalar loop — a batched formulation with static shapes.
 - `resize_plane` / `down2_*`: the non-normative 2D resize
   (resize.c: interpolate_core / down2_symeven / down2_symodd,
   av1_resize_plane), used encoder-side for superres source scaling.

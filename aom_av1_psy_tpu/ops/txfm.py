@@ -1,6 +1,6 @@
 """Batched AV1 forward/inverse 2-D transforms, bit-exact integer paths.
 
-TPU-first design: the per-block scalar butterfly loops of the reference
+Design: the per-block scalar butterfly loops of the reference
 (``av1/encoder/av1_fwd_txfm1d.c``, ``av1/common/av1_inv_txfm1d.c``,
 2-D composition in ``av1_fwd_txfm2d.c`` / ``av1_inv_txfm2d.c``) become
 vectorized stage interpreters over a batch axis: every stage is a static

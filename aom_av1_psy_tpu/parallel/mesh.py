@@ -1,78 +1,25 @@
 """Device-mesh sharding for the encode pipeline.
 
 The reference scales with a pthread pool over tiles/SB-rows/frames
-(``av1/encoder/ethread.c``, SURVEY §2.8). The TPU-native analogue: shard the
-superblock/block grid over a ``jax.sharding.Mesh`` ("tiles" axis — spatial
-tile parallelism P1), with frame/GOP batching on a "frames" axis (FPMT P3
-analogue). Boundary-free stages (analysis, transforms, quantization) are
-embarrassingly parallel over blocks; reductions (rate/distortion totals)
-ride ICI via ``psum`` inside ``shard_map``.
+(``av1/encoder/ethread.c``, SURVEY §2.8). Here the tile columns of a KEY
+frame are sharded over a 1-D ``jax.sharding.Mesh`` ("tiles" axis — spatial
+tile parallelism P1): each device runs the fused intra plan of its own
+tile, and tiles share no prediction state, so no collective is needed.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
-from ..ops import analyze as A
 from ..normative import tables
-from ..normative.enums import TxSize
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "tiles") -> Mesh:
     devs = jax.devices()
     n = n_devices or len(devs)
     return Mesh(np.array(devs[:n]), (axis,))
-
-
-def sharded_analyze_step(mesh: Mesh, n: int = 16, qindex: int = 100):
-    """Build a jitted, mesh-sharded encode-analysis step.
-
-    Input: block batch (B, n, n) uint8 with B divisible by the mesh size,
-    plus per-block above/left/corner edges. Each device analyzes its shard
-    of blocks (tile parallelism); frame-level rate/distortion totals are
-    reduced across the mesh with psum.
-    Returns fn(blocks, above, left, corner) ->
-      (modes, levels, eob, totals{sse, coded_coeffs})
-    """
-    dc_q = tables.dc_quant(qindex)
-    ac_q = tables.ac_quant(qindex)
-    tx_size = {4: TxSize.TX_4X4, 8: TxSize.TX_8X8, 16: TxSize.TX_16X16,
-               32: TxSize.TX_32X32}[n]
-    from ..normative import txsize as TS
-    shift = TS.tx_scale(int(tx_size))
-    scan = jnp.asarray(tables.scan_table(TS.adjusted_tx_size(int(tx_size)), 0))
-
-    def per_shard(blocks, above, left, corner):
-        src = blocks.astype(jnp.int32)
-        preds = A.predict_modes(above, left, corner, n)
-        sse = ((preds - src[None]) ** 2).sum((-1, -2))
-        best = jnp.argmin(sse, axis=0)
-        best_pred = jnp.take_along_axis(
-            preds, best[None, :, None, None], axis=0)[0]
-        res = src - best_pred
-        from ..ops import txfm as T
-        coeffs = T.fwd_txfm2d(res, int(tx_size), 0, bd=8)
-        flat = coeffs.reshape(coeffs.shape[0], -1)
-        levels = A.quantize_fp(flat, dc_q, ac_q, shift)
-        nz = levels[:, scan] != 0
-        idx = jnp.arange(nz.shape[1], dtype=jnp.int32)
-        eob = jnp.max(jnp.where(nz, idx + 1, 0), axis=1)
-        best_sse = jnp.take_along_axis(sse, best[None], 0)[0]
-        # frame totals reduced over the tile mesh (ICI psum)
-        tot_sse = jax.lax.psum(best_sse.sum(), "tiles")
-        tot_coeff = jax.lax.psum(eob.sum(), "tiles")
-        return best, levels, eob, tot_sse, tot_coeff
-
-    fn = shard_map(
-        per_shard, mesh=mesh,
-        in_specs=(P("tiles"), P("tiles"), P("tiles"), P("tiles")),
-        out_specs=(P("tiles"), P("tiles"), P("tiles"), P(), P()))
-    return jax.jit(fn)
 
 
 def tile_plans_sharded(mesh: Mesh, slabs: list, q: int, mi_rows: int):
@@ -87,7 +34,6 @@ def tile_plans_sharded(mesh: Mesh, slabs: list, q: int, mi_rows: int):
     grid and mi_cols_eff. Returns a list of per-tile plan dicts."""
     from ..encoder import tpu_intra as TI
     from ..ec.context import FrameContext
-    import jax
 
     T = len(slabs)
     assert np.prod(mesh.devices.shape) == T, (mesh.devices.shape, T)
@@ -117,51 +63,41 @@ def tile_plans_sharded(mesh: Mesh, slabs: list, q: int, mi_rows: int):
         jnp.asarray(np.exp(np.log(np.asarray(s["rd"], np.float64))
                            .reshape(R, 2, C, 2).mean((1, 3))), jnp.float32)
         for s in slabs])
-    forceds, no_splits = [], []
-    for s in slabs:
-        mce = s["mi_cols_eff"]
-        rr = 8 * np.arange(R)[:, None]
-        cc = 8 * np.arange(C)[None, :]
-        forced = ((rr + 4 >= mi_rows) | (cc + 4 >= mce))
-        nos = np.zeros((R, C), bool)
-        for qr in (0, 1):
-            for qc in (0, 1):
-                sr, sc = rr + 4 * qr, cc + 4 * qc
-                visited = (sr < mi_rows) & (sc < mce)
-                partial = visited & ((sr + 2 >= mi_rows) | (sc + 2 >= mce))
-                nos |= partial
-        assert not (forced & nos).any()
-        forceds.append(forced)
-        no_splits.append(nos)
-    forceds = jnp.stack([jnp.asarray(f) for f in forceds])
-    no_splits = jnp.stack([jnp.asarray(x) for x in no_splits])
+    grids = [TI.partition_edge_grids(mi_rows, s["mi_cols_eff"], R, C)
+             for s in slabs]
+    forceds = jnp.stack([jnp.asarray(g[0]) for g in grids])
+    no_splits = jnp.stack([jnp.asarray(g[1]) for g in grids])
+    # last visible luma column of each tile (edge-read clamp)
+    last_cols = jnp.asarray([s["vis_mi_w"] * 4 - 1 for s in slabs],
+                            jnp.int32)
     kf_cost = jnp.asarray(kf_cost)
     angle_cost = jnp.asarray(angle_cost)
     uv_cost = jnp.asarray(uv_cost)
 
-    def body(y, u, v, rdf, rdc, forced, nos, *mask_leaves):
+    def body(y, u, v, rdf, rdc, forced, nos, last_col, *mask_leaves):
         y, u, v = y[0], u[0], v[0]
         rdf, rdc = rdf[0], rdc[0]
-        forced, nos = forced[0], nos[0]
+        forced, nos, last_col = forced[0], nos[0], last_col[0]
         masks = {k: ml[0] for k, ml in zip(_mask_keys, mask_leaves)}
         split, m32, d32, lv32, e32, m16, d16, lv16, e16, yrec = \
             TI._luma_wavefront_part(
                 y, kf_cost, angle_cost, dc_q, ac_q, rdf, rdc, forced, nos,
                 pr_none, pr_split, rt["y32"], rt["y16"],
-                masks, R=R, C=C)
+                masks, mi_rows * 4 - 1, last_col, R=R, C=C)
         uvm16, uvlv16, uve16, uvm8, uvlv8, uve8, uvrec = \
             TI._chroma_wavefront_part(
                 u, v, uv_cost, dc_q, ac_q, rdf, rdc, split,
-                m32, m16, rt["uv16"], rt["uv8"], R=R, C=C)
+                m32, m16, rt["uv16"], rt["uv8"], mi_rows * 2 - 1,
+                (last_col + 1) // 2 - 1, R=R, C=C)
         outs = (split, m32, d32, lv32, e32, m16, d16, lv16, e16, yrec,
                 uvm16, uvlv16, uve16, uvm8, uvlv8, uve8, uvrec)
         return tuple(o[None] for o in outs)
 
-    n_in = 7 + len(_mask_keys)
-    fn = jax.jit(shard_map(
+    n_in = 8 + len(_mask_keys)
+    fn = jax.jit(jax.shard_map(
         body, mesh=mesh, in_specs=(P("tiles"),) * n_in,
-        out_specs=(P("tiles"),) * 17, check_rep=False))
-    outs = fn(ys, us, vs, rd16, rd32, forceds, no_splits,
+        out_specs=(P("tiles"),) * 17, check_vma=False))
+    outs = fn(ys, us, vs, rd16, rd32, forceds, no_splits, last_cols,
               *[masks_st[k] for k in _mask_keys])
     outs = [np.asarray(o) for o in outs]
     (split, m32, d32, lv32, e32, m16, d16, lv16, e16, yrec,

@@ -1,8 +1,8 @@
 """Frame buffers — the YV12_BUFFER_CONFIG equivalent.
 
 The reference keeps bordered, aligned planar YUV buffers
-(``aom_scale/yv12config.h:123``, ``aom_realloc_frame_buffer`` :161). On TPU
-the natural analogue is a pytree of padded ``jnp``/``np`` arrays whose padding
+(``aom_scale/yv12config.h:123``, ``aom_realloc_frame_buffer`` :161). On a
+device the natural analogue is a pytree of padded ``jnp``/``np`` arrays whose padding
 doubles as the prediction border, with static shapes so everything jits.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Fused TPU encoder conformance: the plan+native-pack path must produce
+"""Fused encoder conformance: the plan+native-pack path must produce
 streams our decoder reconstructs exactly and the reference aomdec decodes
 bit-identically (reference analogue: test/coding_path_sync.cc +
 test/test_vector_test.cc applied to our own streams)."""

@@ -1,4 +1,4 @@
-"""Fused TPU inter path: closed loop (plan recon == decoder recon) and
+"""Fused inter path: closed loop (plan recon == decoder recon) and
 bitstream conformance through the reference aomdec (reference analogue:
 test/coding_path_sync.cc for inter frames)."""
 import os

@@ -1,6 +1,6 @@
 /*
  * ec_oracle.c — encode a fixed LCG-driven symbol stream with the reference
- * entropy encoder (aom_dsp/entenc.c) and dump the bytes, so the Python/TPU
+ * entropy encoder (aom_dsp/entenc.c) and dump the bytes, so the Python/C++
  * range coder can be validated byte-exactly (tests/test_ec.py).
  *
  * Build: gcc tools/ec_oracle.c -I$REF -I$REFBUILD $REFBUILD/libaom.a -lm
